@@ -1,7 +1,7 @@
 """Round-2 surface tour: universal CRS input, datum transforms, and
 real-world zarr stores (blosc chunks, zip archives).
 
-Runs on CPU; no TPU required."""
+Runs on CPU; no GPU required."""
 
 import os
 import sys

@@ -185,3 +185,27 @@ def test_native_phase_b_fuzz_matches_numpy():
         finally:
             nat._lib, nat._tried = lib, tried
         np.testing.assert_array_equal(got, ref, err_msg=f"trial {trial}")
+
+
+def test_library_built_on_another_host_is_rebuilt(monkeypatch, tmp_path):
+    """The library's file name is keyed on the build host's CPU: a copy
+    built elsewhere sits under a foreign key and is never loaded — this
+    host builds and loads its own."""
+    import xcube_resampling_tpu.native as nat
+
+    monkeypatch.setattr(nat, "_BUILD_DIR", tmp_path)
+    monkeypatch.setattr(nat, "_lib", None)
+    monkeypatch.setattr(nat, "_tried", False)
+    monkeypatch.setattr(nat, "_host_cpu_id", lambda: "another host's cpu")
+    foreign = nat._library_path()
+    foreign.write_bytes(b"not a library for this host")
+    monkeypatch.undo()
+
+    monkeypatch.setattr(nat, "_BUILD_DIR", tmp_path)
+    monkeypatch.setattr(nat, "_lib", None)
+    monkeypatch.setattr(nat, "_tried", False)
+    local = nat._library_path()
+    assert local != foreign and not local.exists()
+    assert nat.get_lib() is not None
+    assert local.is_file()
+    assert foreign.read_bytes() == b"not a library for this host"

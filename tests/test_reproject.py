@@ -256,7 +256,7 @@ def test_engine_fast_extreme_warp_env(monkeypatch):
     import jax.numpy as jnp
 
     from xcube_resampling_tpu.gridmapping import GridMapping
-    from xcube_resampling_tpu.reproject import _reproject_on_device
+    from xcube_resampling_tpu.reproject import _device_reproject_fn
 
     src_gm = GridMapping.regular(
         size=(360, 180), xy_min=(-180, -90), xy_res=1.0, crs="EPSG:4326"
@@ -268,13 +268,12 @@ def test_engine_fast_extreme_warp_env(monkeypatch):
     data = jnp.asarray(
         np.linspace(0, 1, 360 * 180, dtype=np.float32).reshape(180, 360)
     )
-    base = np.asarray(
-        _reproject_on_device(data, src_gm, tgt_gm, "bilinear", np.nan)
-    )
+    _, base_fn = _device_reproject_fn(src_gm, tgt_gm, "bilinear", np.nan)
+    base = np.asarray(base_fn(data))
     monkeypatch.setenv("XRTPU_FAST_EXTREME_WARP", "1")
-    fast = np.asarray(
-        _reproject_on_device(data, src_gm, tgt_gm, "bilinear", np.nan)
-    )
+    tier, fast_fn = _device_reproject_fn(src_gm, tgt_gm, "bilinear", np.nan)
+    assert tier == "region-srw"
+    fast = np.asarray(fast_fn(data))
     both = ~np.isnan(base) & ~np.isnan(fast)
     assert both.mean() > 0.9
     # smooth input: the two paths agree to the documented tolerance

@@ -1,9 +1,10 @@
-"""xcube_resampling_tpu — TPU-native geospatial raster resampling framework.
+"""xcube_resampling_tpu — geospatial raster resampling on accelerators.
 
-A from-scratch rebuild of the capabilities of xcube-dev/xcube-resampling
-(reference mounted at /root/reference) designed TPU-first:
+A from-scratch JAX rebuild of the capabilities of
+xcube-dev/xcube-resampling (reference mounted at /root/reference) with its
+hot paths on the device (a GPU):
 
-* compute path: JAX / XLA / Pallas kernels (gathers, stencils, reductions)
+* compute path: JAX / XLA kernels (gathers, stencils, reductions)
 * chunk orchestration: static-shape tile batching + ``jax.sharding`` meshes
   (replaces dask task graphs)
 * CRS engine: native jittable projection math (replaces pyproj) — the

@@ -1,7 +1,7 @@
 """Affine resampling engine (same-CRS regular -> regular grids).
 
 Behavioral parity: reference affine.py:52-363.  The compute tier is
-redesigned for TPU: instead of dask_image's per-block scipy spline
+redesigned for the device: instead of dask_image's per-block scipy spline
 kernel, the whole transform is one vectorized gather
 (:mod:`..ops.gather`) plus a window reduction
 (:mod:`..ops.coarsen_ops`) for the downscale split — both trace into a

@@ -2,7 +2,7 @@
 
 The reference delegates chunked execution to dask: it assembles a custom
 task graph block-by-block with injected block context
-(reference: /root/reference/xcube_resampling/dask.py:41-135).  The TPU
+(reference: /root/reference/xcube_resampling/dask.py:41-135).  This
 rebuild has no task scheduler — tiles are *static shapes* executed eagerly
 (typically through jit-compiled kernels; see
 :mod:`xcube_resampling_tpu.parallel.tiling`) — so this module only supplies

@@ -1,7 +1,7 @@
-"""TPU-native CRS engine: CRS model, projections, transformers.
+"""Native CRS engine: CRS model, projections, transformers.
 
 Replaces the reference's pyproj dependency with pure array math that runs
-both as float64 numpy on the host and under ``jax.jit`` on TPU.
+both as float64 numpy on the host and under ``jax.jit`` on the device.
 """
 
 from .core import CRS, CRSError, CRS_CRS84, CRS_WGS84

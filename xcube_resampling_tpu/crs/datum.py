@@ -1,10 +1,10 @@
-"""Reference ellipsoids / datums for the TPU-native CRS engine.
+"""Reference ellipsoids / datums for the native CRS engine.
 
 The reference library delegates all geodesy to the PROJ C library via pyproj
 (reference: /root/reference/xcube_resampling/gridmapping/base.py:49-52,
 reproject.py:124-126).  This rebuild implements the projection math natively
 so coordinate transforms are pure array functions that run under ``jax.jit``
-on TPU — the transform step becomes part of the fused device kernel instead
+on the device — the transform step becomes part of the fused device kernel instead
 of a host-side staging pass.
 
 Datum note: ETRS89 and WGS84 are treated as coincident (their offset is

@@ -8,8 +8,9 @@ Every projection is exposed as ``make_<name>(params, ellipsoid)`` returning a
 
 All derived constants (series coefficients, origin offsets) are precomputed
 as Python floats at construction time, so the closures trace cleanly under
-``jax.jit`` with static geometry and run on TPU as fused element-wise code
-(VPU), or in float64 numpy on the host for golden-accurate index math.
+``jax.jit`` with static geometry and run on the device as fused
+element-wise code, or in float64 numpy on the host for golden-accurate
+index math.
 
 Formulas follow Karney (2011) for the transverse Mercator (6th-order Krüger
 series, sub-nanometer accuracy) and Snyder (1987) / the EPSG guidance notes

@@ -5,45 +5,98 @@ this package supplies the equivalent as ahead-of-time-compiled C++ shared
 libraries.  The library builds itself on first use (g++, no pybind11) and
 everything falls back transparently to the vectorized numpy implementations
 when no compiler is available.  Set ``XRTPU_NO_NATIVE=1`` to disable.
+
+The library is built with ``-march=native``, so a copy built on one CPU
+can crash another with an illegal instruction.  Its file name therefore
+carries a hash of the sources, the build recipe and the build host's CPU
+(``build/libxrtpu_native-<key>.so``, git-ignored): a tree copied to
+another host finds no library under its own key and builds one.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
 import numpy as np
 
 _HERE = Path(__file__).parent
-_LIB_PATH = _HERE / "libxrtpu_native.so"
+_BUILD_DIR = _HERE / "build"
 _SOURCES = [_HERE / "phase_a.cpp", _HERE / "phase_b.cpp", _HERE / "bbox.cpp"]
+
+# -ffp-contract=off: FMA contraction would perturb the float64
+# interpolation/solve math away from the numpy reference semantics; with
+# it off, -march=native only vectorizes (bit-identical results)
+_BASE_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-ffp-contract=off")
+# native-arch + OpenMP first; progressively portable fallbacks
+_FLAG_LADDER = (("-march=native", "-fopenmp"), ("-fopenmp",), ())
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
-def _build() -> bool:
-    # -ffp-contract=off: FMA contraction would perturb the float64
-    # interpolation/solve math away from the numpy reference semantics;
-    # with it off, -march=native only vectorizes (bit-identical results)
-    base = ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-ffp-contract=off"]
-    tail = ["-o", str(_LIB_PATH), *[str(s) for s in _SOURCES]]
-    # native-arch + OpenMP first; progressively portable fallbacks
-    for flags in (["-march=native", "-fopenmp"], ["-fopenmp"], []):
-        try:
-            res = subprocess.run(
-                base + flags + tail,
-                capture_output=True, timeout=120, cwd=str(_HERE),
-            )
-            if res.returncode == 0 and _LIB_PATH.is_file():
+def _host_cpu_id() -> str:
+    """The build host's CPU: machine, model name and feature flags."""
+    lines = []
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key = line.split(":", 1)[0].strip()
+                if key in ("model name", "flags", "Features", "CPU part"):
+                    lines.append(line.strip())
+                elif not line.strip() and lines:
+                    break  # the first processor's block is enough
+    except OSError:
+        lines.append(platform.processor())
+    return "\n".join([platform.machine(), *lines])
+
+
+def _library_key() -> str:
+    h = hashlib.sha256()
+    for src in _SOURCES:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(repr((_BASE_FLAGS, _FLAG_LADDER)).encode())
+    h.update(_host_cpu_id().encode())
+    return h.hexdigest()[:20]
+
+
+def _library_path() -> Path:
+    return _BUILD_DIR / f"libxrtpu_native-{_library_key()}.so"
+
+
+def _build(lib_path: Path) -> bool:
+    """Compile into a private temporary file, then rename it into place,
+    so concurrent builders (test workers) never load a half-written
+    library."""
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(
+        prefix=lib_path.stem + ".", suffix=".tmp", dir=lib_path.parent
+    )
+    os.close(fd)
+    try:
+        for flags in _FLAG_LADDER:
+            cmd = ["g++", *_BASE_FLAGS, *flags, "-o", tmp, *map(str, _SOURCES)]
+            try:
+                res = subprocess.run(
+                    cmd, capture_output=True, timeout=120, cwd=str(_HERE)
+                )
+            except (OSError, subprocess.SubprocessError):
+                return False
+            if res.returncode == 0 and os.path.getsize(tmp) > 0:
+                os.replace(tmp, lib_path)
                 return True
-        except (OSError, subprocess.SubprocessError):
-            return False
-    return False
+        return False
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def get_lib():
@@ -57,12 +110,11 @@ def get_lib():
         _tried = True
         if os.environ.get("XRTPU_NO_NATIVE"):
             return None
-        newest_src = max(s.stat().st_mtime for s in _SOURCES)
-        if not _LIB_PATH.is_file() or _LIB_PATH.stat().st_mtime < newest_src:
-            if not _build():
-                return None
+        lib_path = _library_path()
+        if not lib_path.is_file() and not _build(lib_path):
+            return None
         try:
-            lib = ctypes.CDLL(str(_LIB_PATH))
+            lib = ctypes.CDLL(str(lib_path))
         except OSError:
             return None
         lib.inverse_ij_map_f64.argtypes = [

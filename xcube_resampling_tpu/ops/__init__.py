@@ -1,4 +1,4 @@
-"""Device kernels: the TPU-native replacement of the reference's numba tier.
+"""Device kernels: the XLA replacement of the reference's numba tier.
 
 Every kernel is written dtype-generically against an array namespace ``xp``
 (numpy for float64 host execution — the semantics-defining reference path,

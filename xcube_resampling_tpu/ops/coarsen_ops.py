@@ -3,9 +3,9 @@
 The host path reshapes into windows and applies the numpy reducers from
 :mod:`xcube_resampling_tpu.coarsen` (semantics-defining, NaN-aware, int
 round-trip).  The device path maps the same window reshape onto XLA — a
-reshape + reduce lowers to a tiled reduce-window on TPU; ``mode`` becomes a
-one-hot bincount argmax (replacing the reference's numba histogram loop,
-coarsen.py:138-155).
+reshape + reduce that XLA fuses into one reduction; ``mode`` becomes a
+pairwise running-best or a sort (replacing the reference's numba
+histogram loop, coarsen.py:138-155).
 """
 
 from __future__ import annotations
@@ -100,9 +100,8 @@ def _mode_jax(block, axis):
     Small windows (the common 2x2..8x8 coarsenings) use a pairwise
     running-best: counts[i] = sum_j (x_i == x_j) accumulated tap by tap
     (never the (N, w, w) equality tensor), then best = max count with
-    min value.  No sort, pure fused elementwise+select on the VPU —
-    measured 449 vs 245 Mpix/s on the 4-band 4096^2 4x4 bench config
-    (scratch/mode_pairwise_probe.py).  NaN taps never self-match, so a
+    min value.  No sort, pure fused elementwise+select.  NaN taps never
+    self-match, so a
     NaN only wins an all-NaN window — identical to the sort path.
 
     Larger windows fall back to sort + longest-run detection:

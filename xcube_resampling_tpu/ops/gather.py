@@ -118,10 +118,10 @@ def grid_gather_separable(array, yy, xx, order: int, fill_value, xp=None):
     )
     if separable:
         # axis-aligned sampling (affine upscale): factorize the four-tap
-        # gather into row-takes + lane-shared column-takes, which stream at
-        # memory bandwidth on TPU (a 2D gather would serialize) and save
-        # the four full-size broadcast gathers on the host (~3x less work
-        # and no (H, W) index temporaries)
+        # gather into row-takes + row-shared column-takes, which read
+        # memory in order (instead of a 2D gather) and save the four
+        # full-size broadcast gathers on the host (~3x less work and no
+        # (H, W) index temporaries)
         r0 = xp.take(array, y0[:, 0], axis=-2).astype(out_dtype)
         r1 = xp.take(array, y1[:, 0], axis=-2).astype(out_dtype)
         ry0 = r0 * (1 - fy) + r1 * fy
@@ -219,7 +219,7 @@ def grid_sample(
 
 @functools.lru_cache(maxsize=128)
 def _jit_affine_gather(j_scale, i_scale, j_off, i_off, out_h, out_w, order, fill):
-    """Jit-compiled affine gather closure for the TPU fast path."""
+    """Jit-compiled affine gather closure for the device fast path."""
     import jax
     import jax.numpy as jnp
 
@@ -232,7 +232,7 @@ def _jit_affine_gather(j_scale, i_scale, j_off, i_off, out_h, out_w, order, fill
 
 
 def affine_gather_jax(array, j_scale, i_scale, j_off, i_off, out_h, out_w, order, fill):
-    """TPU path: compile-once affine gather (static geometry)."""
+    """Device path: compile-once affine gather (static geometry)."""
     fn = _jit_affine_gather(
         float(j_scale),
         float(i_scale),

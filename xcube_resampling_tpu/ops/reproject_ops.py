@@ -5,7 +5,7 @@ then a numpy gather (reference reproject.py:472-496, 268-335).  Here the
 device kernel is a single fused XLA computation.  Two coordinate strategies:
 
 * ``exact=True`` — evaluate the native projection pipeline per pixel on
-  device.  Only valid with float64 (TPU f64 is slow); used for validation.
+  device.  Only valid with float64; used for validation.
 * default (approximate-field) — evaluate the inverse transform on a coarse
   grid (every ``step``-th target pixel) on the host in float64, convert to
   *fractional source indices* (bounded magnitudes, float32-safe), and let
@@ -67,8 +67,8 @@ def _interp_field(field, rows, cols, step, xp):
     cell coordinates given by target pixel rows/cols (broadcastable).
 
     When rows is (H, 1) and cols is (1, W) — the common case — the gather
-    factorizes into a row-take followed by a lane-shared column-take, which
-    stream at memory bandwidth on TPU (a fused 2D gather would serialize).
+    factorizes into a row-take followed by a column-take shared by all
+    rows, both contiguous memory streams instead of a 2D gather.
     """
     inv = 1.0 / step
     cj = rows * inv
@@ -161,8 +161,8 @@ def make_fused_reproject_fn(
 
     ix_c_np, iy_c_np, step = coarse_coord_field(source_gm, target_gm, step)
     # The coarse fields are passed as call arguments, not captured
-    # constants: embedded host constants force per-call re-staging on some
-    # backends (measured 5 orders of magnitude slower on the remote TPU).
+    # constants: embedded host constants are re-staged on every call by
+    # some backends.
     ix_c = jnp.asarray(ix_c_np)
     iy_c = jnp.asarray(iy_c_np)
     out_h, out_w = target_gm.height, target_gm.width

@@ -1,9 +1,9 @@
 """Separable-residual warp (SRW): gather-free reprojection at HBM speed.
 
-XLA lowers general 2D gathers on TPU to near-serial loads (~20 Mpix/s
-measured on v5e) while contiguous row-takes, lane-shared column-takes,
-rolls, selects and FMAs all stream at memory bandwidth.  SRW reformulates
-smooth-warp resampling (reprojection, affine) to use only those primitives.
+A general 2D gather reads scattered addresses, while contiguous
+row-takes, column-takes shared by all rows, rolls, selects and FMAs all
+stream through memory in order.  SRW reformulates smooth-warp resampling
+(reprojection, affine) to use only those primitives.
 
 **Two-pass decomposition** (Catmull & Smith 1980 style): vertical pass
 ``v[j, c] = src(iy*(j, c), c)`` onto the (output-row, source-column) grid,
@@ -18,7 +18,7 @@ Two execution strategies, chosen by the planner from the measured field:
 
 * **Tiled** (mild warp): within a column tile, ``iy*`` varies by only a
   few pixels around a per-output-row integer base, so each pass is a short
-  sum of hat-weighted whole-row (resp. lane-shared column) takes.
+  sum of hat-weighted whole-row (resp. row-shared column) takes.
 * **Aligned** (severe warp/rotation): a smooth per-column integer shift
   vector is applied first via log2(range) roll+select passes, which
   collapses the residual variation to ~1 pixel regardless of rotation;
@@ -699,57 +699,6 @@ def make_srw_fn(plan: SRWPlan, interp_method: str = "bilinear", fill_value=np.na
             src, pos_v_dev, pos_h_dev, valid_dev, base_v, base_h, s_dev
         )
 
-    import os
-
-    if os.environ.get("XRTPU_PALLAS") == "1" and interp_method == "bilinear":
-        # Opt-in Mosaic vertical pass (block-static taps, 7.5 Gpix/s on
-        # v5e vs 5.5 for the XLA taps — see ops/pallas_kernels.py).  The
-        # horizontal pass and fill select stay in XLA.  2-D sources only;
-        # band stacks fall back to the XLA kernel.
-        from .pallas_kernels import srw_vertical_pallas
-
-        interpret = os.environ.get("XRTPU_PALLAS_INTERPRET") == "1"
-
-        @jax.jit
-        def horiz(v, pos_h, valid, bh):
-            out_tiles = []
-            for t in range(n_row_tiles):
-                r0 = t * p.row_tile
-                r1 = min((t + 1) * p.row_tile, p.out_h)
-                pos = pos_h[r0:r1, :]
-                base_t = bh[t]
-                tile_v = v[r0:r1, :]
-                acc = jnp.zeros((r1 - r0, p.out_w), dtype=jnp.float32)
-                for d in range(p.d_h):
-                    idx = jnp.clip(base_t + d, 0, p.src_w - 1)
-                    w = weight(pos, (base_t + d)[None, :].astype(jnp.float32))
-                    acc = acc + w * jnp.take(tile_v, idx, axis=-1)
-                out_tiles.append(acc)
-            out = jnp.concatenate(out_tiles, axis=-2)
-            fill = jnp.asarray(fill_value, dtype=out.dtype)
-            return jnp.where(valid, out, fill)
-
-        def pallas_fn(src):
-            if jnp.ndim(src) != 2:
-                return fn(src)
-            v_tiles = []
-            for t in range(n_col_tiles):
-                c0 = t * p.col_tile
-                c1 = min((t + 1) * p.col_tile, p.src_w)
-                v_tiles.append(
-                    srw_vertical_pallas(
-                        src[:, c0:c1],
-                        pos_v_dev[:, c0:c1],
-                        p.base_v[:, t],
-                        p.d_v,
-                        interpret=interpret,
-                    )
-                )
-            v = jnp.concatenate(v_tiles, axis=-1)
-            return horiz(v, pos_h_dev, valid_dev, base_h)
-
-        return pallas_fn
-
     return fn
 
 
@@ -761,10 +710,10 @@ def make_srw_fn_batched(
     of tiles, but a compile-time problem at large rasters (e.g. a 20k
     grid with 512-px tiles emits 500+ takes).  Here each tap is a single
     ``take_along_axis`` over a leading tile axis with size-1 index dims
-    (lane-invariant row gather — streams on TPU; see
+    (a row gather invariant along the minor axis; see
     :func:`make_srw_hybrid_fn`), so the op count is d_v + d_h regardless
     of tile count.  The horizontal pass transposes each row tile so its
-    take also indexes sublanes.
+    take also indexes rows.
     """
     import jax
     import jax.numpy as jnp
@@ -1257,8 +1206,9 @@ def plan_srw_hybrid(
             span_max = max(span_max, float((seg.max(axis=1) - m).max()))
         return base, int(np.ceil(span_max)) + 4
 
-    # the vertical take's lane dimension is col_tile: tiles below 128
-    # waste lanes, so weight the tap count by the wasted fraction
+    # the vertical take's minor dimension is col_tile: tiles narrower
+    # than 128 columns count their taps as if 128 wide (a tuned penalty
+    # on narrow tiles, to be re-tuned on the GPU)
     best_v = None
     for cand in (512, 256, 128, 64, 32):
         base, d = _v_layout(cand)
@@ -1305,9 +1255,8 @@ def plan_srw_hybrid(
             span_max_h = max(span_max_h, float((seg.max(axis=0) - m).max()))
         return base, int(np.ceil(span_max_h)) + 4
 
-    # after the kernel's per-tile transpose, row_tile is the lane
-    # dimension of the horizontal take: weight the tap count by wasted
-    # lanes below 128
+    # after the kernel's per-tile transpose, row_tile is the minor
+    # dimension of the horizontal take: the same narrow-tile penalty
     best_h = None
     for cand in (512, 256, 128, 64, 32, 16):
         base, d = _h_layout(cand)
@@ -1463,9 +1412,9 @@ def make_srw_hybrid_fn(
             idx = jnp.clip(bvt + d - r_lo, 0, ext_h - 1)  # (T, out_h)
             w = weight(pos_t, (bvt + d)[..., None].astype(jnp.float32))
             # size-1 trailing/batch index dims are essential: XLA then sees
-            # a lane-invariant row gather (streams at HBM speed); a
-            # materialized full-shape index lowers to a serial gather
-            # (measured 430x slower on v5e)
+            # a row gather invariant along the minor axis (whole rows
+            # copied); a materialized full-shape index lowers to a
+            # per-element gather
             idx_b = idx.reshape(
                 (n_col_tiles,) + (1,) * len(batch) + (p.out_h, 1)
             )
@@ -1503,8 +1452,8 @@ def make_srw_hybrid_fn(
             v2 = jnp.pad(
                 v2, [(0, 0)] * (v2.ndim - 2) + [(0, pad), (0, 0)]
             )
-        # transpose each row tile so the take indexes sublanes (a per-tile
-        # row gather with size-1 index dims — fast) instead of lanes
+        # transpose each row tile so the take indexes rows (a per-tile
+        # row gather with size-1 index dims) instead of columns
         v_t = jnp.swapaxes(
             jnp.moveaxis(
                 v2.reshape(batch + (n_row_tiles, p.row_tile, ext_w)), -3, 0
@@ -1843,8 +1792,8 @@ def make_region_reproject_fn(
     import jax
 
     # one jitted dispatch for the whole mosaic: per-piece eager calls would
-    # pay a host->device round trip each (measured to dominate wall time on
-    # remote backends); fused, the pieces also share layout/fusion decisions
+    # pay a dispatch each; fused, the pieces also share layout/fusion
+    # decisions
     @jax.jit
     def fn(src):
         src = jnp.asarray(src)

@@ -1,7 +1,7 @@
 """Static-shape tile batching: the dask-graph replacement.
 
 The reference expresses tiled work as a dask task graph with one task per
-block (reference dask.py:41-135).  On TPU the same decomposition becomes a
+block (reference dask.py:41-135).  Here the same decomposition becomes a
 *batch of identically-shaped tiles*: stack the tiles along a leading axis,
 ``vmap`` the tile kernel over it, and (optionally) shard that axis over the
 device mesh — every tile is one program instance, compiled once.

@@ -1,7 +1,7 @@
 """Reprojection engine (regular -> regular grids across CRSs).
 
 Semantics track reference ``reproject.py:51-530`` (see NOTICE) with a
-TPU-first compute design.  The reference stages pyproj host calls per dask
+device-first compute design.  The reference stages pyproj host calls per dask
 block and gathers through a uniformized source-window mosaic; here the
 coordinate transform is the native CRS engine (float64 numpy on the host
 for the golden path — and fully fused into the device kernel in the
@@ -18,8 +18,9 @@ per-tile Python loops.
 
 from __future__ import annotations
 
+import functools
 import math
-from collections.abc import Hashable, Iterable
+from collections.abc import Callable, Hashable, Iterable
 from dataclasses import dataclass
 
 import numpy as np
@@ -83,10 +84,15 @@ def reproject_dataset(
             interp_methods, agg_methods, recover_nans,
         )
 
-    with TIMER("reproject.plan"):
-        plan = _plan_source_windows(inv, source_gm, target_gm)
-        # Inverse-transform the target pixel-center grid into source coords
-        src_xx, src_yy = _target_centers_in_source(inv, target_gm)
+    @functools.cache
+    def host_plan():
+        # built on first use: device-backed variables never read it, and
+        # at a 20k^2 target the center grid alone is ~7 GB of float64
+        with TIMER("reproject.plan"):
+            plan = _plan_source_windows(inv, source_gm, target_gm)
+            # inverse-transform the target pixel-center grid
+            src_xx, src_yy = _target_centers_in_source(inv, target_gm)
+        return src_xx, src_yy, plan
 
     target_ds = assemble_target_shell(
         source_ds,
@@ -102,7 +108,7 @@ def reproject_dataset(
                 f"Data variable {name} has {len(var.dims)} dimensions."
             )
             target_ds[name] = _reproject_variable(
-                var, name, source_gm, target_gm, src_xx, src_yy, plan,
+                var, name, source_gm, target_gm, host_plan,
                 interp_methods, fill_values,
             )
         elif not set(grid_dims) & set(var.dims):
@@ -132,9 +138,7 @@ def _reproject_variable(
     name: Hashable,
     source_gm: GridMapping,
     target_gm: GridMapping,
-    src_xx: np.ndarray,
-    src_yy: np.ndarray,
-    plan: _WindowPlan,
+    host_plan: Callable[[], tuple[np.ndarray, np.ndarray, _WindowPlan]],
     interp_methods: InterpMethods | None = None,
     fill_values: FillValues | None = None,
 ) -> DataArray:
@@ -149,13 +153,18 @@ def _reproject_variable(
         # device fast path: variables backed by JAX arrays stay on device
         # and run through the fused kernels (SRW when the mapping allows,
         # XLA gather otherwise); results use the approximate coordinate
-        # field (sub-1e-2 px), see ops/reproject_ops
-        with TIMER("reproject.device"):
-            image = _reproject_on_device(
-                var.data, source_gm, target_gm, interp, fill_value
+        # field (sub-1e-2 px), see ops/reproject_ops.  Planning (cold:
+        # tier selection and the tier's host plan) and the call are timed
+        # apart; the call's phase name carries the tier the dispatch chose.
+        with TIMER("reproject.device_plan"):
+            tier, fn = _device_reproject_fn(
+                source_gm, target_gm, interp, fill_value
             )
+        with TIMER(f"reproject.device.{tier}"):
+            image = fn(var.data)
         return _as_target_array(var, image, target_gm, had_band_axis)
 
+    src_xx, src_yy, plan = host_plan()
     image = _gather_through_windows(
         np.asarray(var.data), source_gm, target_gm,
         src_xx, src_yy, plan, interp, fill_value,
@@ -217,12 +226,12 @@ def _gm_fingerprint(gm) -> tuple:
     )
 
 
-def _reproject_on_device(data, source_gm, target_gm, interp_method, fill_value):
-    """Tiered device reproject with a small plan memo: the compiled tier
-    function depends only on the grid-mapping pair, interp, fill and the
-    tier env flags — per-variable and repeated-call workloads reuse it
-    instead of replanning (the exact-mosaic tier plans for ~14 s per
-    geometry)."""
+def _device_reproject_fn(source_gm, target_gm, interp_method, fill_value):
+    """``(tier, fn)`` of the tiered device reproject, with a small plan
+    memo: the compiled tier function depends only on the grid-mapping
+    pair, interp, fill and the tier env flags — per-variable and
+    repeated-call workloads reuse it instead of replanning (the
+    exact-mosaic tier plans for seconds per geometry)."""
     import os
 
     key = (
@@ -231,20 +240,17 @@ def _reproject_on_device(data, source_gm, target_gm, interp_method, fill_value):
         os.environ.get("XRTPU_EXACT", ""),
         os.environ.get("XRTPU_FAST_EXTREME_WARP", ""),
         os.environ.get("XRTPU_NO_EXACT_MOSAIC", ""),
-        os.environ.get("XRTPU_PALLAS", ""),
     )
-    fn = _DEVICE_FN_CACHE.pop(key, None)
-    if fn is not None:
-        _DEVICE_FN_CACHE[key] = fn  # re-insert: LRU order
-        return fn(data)
-    fn = _build_device_reproject_fn(
-        source_gm, target_gm, interp_method, fill_value
-    )
-    _DEVICE_FN_CACHE[key] = fn
+    built = _DEVICE_FN_CACHE.pop(key, None)
+    if built is None:
+        built = _build_device_reproject_fn(
+            source_gm, target_gm, interp_method, fill_value
+        )
+    _DEVICE_FN_CACHE[key] = built  # (re-)insert: LRU order
     while len(_DEVICE_FN_CACHE) > _DEVICE_FN_CACHE_MAX:
         # oldest entry out (its device statics can be hundreds of MB)
         _DEVICE_FN_CACHE.pop(next(iter(_DEVICE_FN_CACHE)))
-    return fn(data)
+    return built
 
 
 def _build_device_reproject_fn(source_gm, target_gm, interp_method, fill_value):
@@ -254,35 +260,39 @@ def _build_device_reproject_fn(source_gm, target_gm, interp_method, fill_value):
     from .ops.reproject_ops import make_fused_reproject_fn
     from .ops.srw import make_region_reproject_fn, make_srw_reproject_fn
 
-    # Engine tiers (measured on one v5e chip, 4096^2 bilinear):
-    #   1. gated two-pass SRW   ~8 Gpix/s   positions <= ~0.05 px of direct
-    #      (mild warps only: the slope gate rejects rotation-heavy cases)
-    #   2. exact separable warp ~2.4 Gpix/s mild / ~0.8 Gpix/s severe —
-    #      reproduces the direct gather kernel (bit-exact nearest, <= 2
-    #      ulp bilinear), covers local rotation slopes to ~4 px/px
-    #   3. exact region mosaic  ~120 Mpix/s — domain-scale warps with a
+    # Engine tiers, first that plans wins:
+    #   1. "srw": gated two-pass separable warp; positions within ~0.05 px
+    #      of the direct gather (mild warps only: the slope gate rejects
+    #      rotation-heavy cases)
+    #   2. "esw": exact separable warp — reproduces the direct gather
+    #      kernel (bit-exact nearest, <= 2 ulp bilinear) and covers local
+    #      rotation slopes to ~4 px/px
+    #   3. "esw-mosaic": exact region mosaic for domain-scale warps with a
     #      projection singularity inside the target; same exact
-    #      semantics, one-time multi-kernel compile per geometry
-    #   4. XLA gather           ~20 Mpix/s  exact, no planning constraints
-    # XRTPU_EXACT=1 skips tier 1 (exact semantics everywhere);
-    # XRTPU_FAST_EXTREME_WARP=1 swaps tier 3 for the two-pass region
-    # mosaic (fastest extreme-warp mode, two-pass filter semantics);
+    #      semantics, one-time multi-program compile per geometry
+    #   4. "gather": the plain fused gather; exact, no planning constraints
+    # The order was set on other hardware and is to be re-ranked from
+    # GPU measurements.  XRTPU_EXACT=1 skips tier 1 (exact semantics
+    # everywhere); XRTPU_FAST_EXTREME_WARP=1 swaps tier 3 for the
+    # two-pass region mosaic ("region-srw", two-pass filter semantics);
     # XRTPU_NO_EXACT_MOSAIC=1 skips tier 3 (gather instead — avoids the
     # one-time compile for throwaway geometries).
-    fn = None
     if os.environ.get("XRTPU_EXACT", "") != "1":
         fn = make_srw_reproject_fn(
             source_gm, target_gm, interp_method, fill_value
         )
-    if fn is None and os.environ.get("XRTPU_FAST_EXTREME_WARP", "") == "1":
+        if fn is not None:
+            return "srw", fn
+    if os.environ.get("XRTPU_FAST_EXTREME_WARP", "") == "1":
         fn = make_region_reproject_fn(
             source_gm, target_gm, interp_method, fill_value
         )
-    if fn is None:
-        fn = make_esw_reproject_fn(
-            source_gm, target_gm, interp_method, fill_value
-        )
-    if fn is None and os.environ.get("XRTPU_NO_EXACT_MOSAIC", "") != "1":
+        if fn is not None:
+            return "region-srw", fn
+    fn = make_esw_reproject_fn(source_gm, target_gm, interp_method, fill_value)
+    if fn is not None:
+        return "esw", fn
+    if os.environ.get("XRTPU_NO_EXACT_MOSAIC", "") != "1":
         LOG.info(
             "reproject: domain-scale warp, building the exact region "
             "mosaic (one-time planning + compilation per geometry; set "
@@ -291,11 +301,11 @@ def _build_device_reproject_fn(source_gm, target_gm, interp_method, fill_value):
         fn = make_region_reproject_fn(
             source_gm, target_gm, interp_method, fill_value, exact=True
         )
-    if fn is None:
-        fn = make_fused_reproject_fn(
-            source_gm, target_gm, interp_method, fill_value
-        )
-    return fn
+        if fn is not None:
+            return "esw-mosaic", fn
+    return "gather", make_fused_reproject_fn(
+        source_gm, target_gm, interp_method, fill_value
+    )
 
 
 def _as_target_array(var, image, target_gm, had_band_axis) -> DataArray:

@@ -1,4 +1,4 @@
-"""xrlite — a minimal, TPU-friendly labelled-array data model.
+"""xrlite — a minimal, device-array-friendly labelled-array data model.
 
 This subsystem replaces the reference's external dependency on ``xarray``
 (reference: /root/reference/xcube_resampling uses xarray.Dataset /

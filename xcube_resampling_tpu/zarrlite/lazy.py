@@ -1,8 +1,8 @@
 """Chunk-lazy zarr-backed arrays.
 
 The reference gets out-of-core *reading* from dask-backed xarray: slicing
-a variable only loads the chunks the slice touches (SURVEY.md §2.3).  The
-TPU rebuild has no task graph; instead :class:`LazyArray` is a tiny
+a variable only loads the chunks the slice touches (SURVEY.md §2.3).  This
+rebuild has no task graph; instead :class:`LazyArray` is a tiny
 ndarray-duck that resolves basic slicing directly against the store.  A
 :class:`~..xrlite.DataArray` accepts it as data (anything carrying
 shape/dtype), so ``open_dataset(..., lazy=True)`` gives datasets whose
